@@ -1,22 +1,20 @@
-"""Benchmark: GCUPS on the canonical guided-alignment workload.
+"""Benchmark: GCUPS on the canonical guided-alignment workload, on a GPU.
 
 Mirrors the reference harness (AGAThA.sh:44): canonical parameters
 -m 1 -x 4 -q 6 -r 2 -s 3 -z 400 -w 751.  The reference's bundled
 dataset is stripped from the mount, so a deterministic synthetic
-long-read seed-extension workload stands in: 512 homologous ~10kb
+long-read seed-extension workload stands in: 1024 homologous ~10 kb
 pairs with ~10% divergence, the regime AGAThA targets.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-value = banded DP cell-updates per second (GCUPS) on one chip,
-counting exactly the in-band cells of the antidiagonals the kernel
-actually swept (Z-drop credit included, padding excluded).
-vs_baseline = fraction of the CROSS-MAPPING faithful-semantics bound
-for this config (`cross_mapping_bound`: the max of the antidiagonal
-mapping's measured cost floor and, at the canonical band, the banded
-column-sweep structure measurement — BASELINE.md "Cross-mapping bound
-(round 5)" has the derivation).  The reference repo publishes no
-numbers (BASELINE.json "published": {}); the BASELINE.md target is
->= 0.70 of the bound.
+Usage:  python bench.py [N_PAIRS [MEAN_LEN [BAND [Z]]]] [--profile [DIR]]
+
+Prints the device and its power limit on stderr, then ONE JSON line:
+{"metric", "value", "unit", "device"}.  value = banded DP cell updates
+per second (GCUPS), counting exactly the in-band cells of the
+antidiagonals each pair swept (Z-drop credit included, padding
+excluded), over the best of 3 warm end-to-end ``engine.align`` calls.
+Exits non-zero when JAX finds no GPU: a CPU number is not a device
+metric.
 """
 
 import json
@@ -24,144 +22,77 @@ import sys
 import time
 
 
-def roofline_gcups(cfg) -> float:
-    """Faithful-semantics roofline (GCUPS) for one v5e core.
-
-    Full derivation + the ablation measurements behind the constants:
-    BASELINE.md "Roofline for vs_baseline".  Cost classes per substep
-    (1 base antidiagonal x 8 pairs at W lanes): core 13-op DP
-    arithmetic (29.1 ns at W=1024), faithful masks (32.5), per-diagonal
-    max + Z-drop bookkeeping (43.5) — all scaling with W — plus the
-    2.5-roll/substep lane-shift floor (47.5 ns, width-independent).
-    Useful cells per substep = 8 * band_width.  The historical 74-GCUPS
-    figure was the zero-overhead bound (1024 lanes / 13 ops * 0.94 GHz)
-    and is explained, not used, in BASELINE.md.
-    """
-    from agatha_tpu.ops.kernel import window_width
-
-    W = window_width(cfg)
-    t_floor = (29.1 + 32.5 + 43.5) * W / 1024.0 + 47.5
-    return 8 * cfg.band_width / t_floor
-
-
-def cross_mapping_bound(cfg) -> float:
-    """Best known faithful-semantics bound across kernel mappings.
-
-    The antidiagonal roofline above is a MAPPING-SPECIFIC cost floor
-    (its lane-shift and per-diagonal-reduction terms are properties of
-    the lane-mapped antidiagonal frame, not of the recurrence).  The
-    banded column-sweep probe measured a 44 GCUPS-equiv cost
-    *structure* for the same semantics at the canonical band
-    (scripts/colband_probe.py, bw=751: per-column E prefix chain +
-    masks + packed emission, cells credited = (2*bw+1) in-band rows
-    per column) — so the honest cross-mapping bound at that band is
-    the max of the two.  At other bands only the antidiagonal floor
-    is measured; see BASELINE.md "Cross-mapping bound (round 5)".
-    """
-    b = roofline_gcups(cfg)
-    if cfg.band_width == 751:
-        b = max(b, 44.0)
-    return b
-
-
-def make_workload(n_pairs=512, mean_len=10000, seed=1234):
-    from agatha_tpu.utils.workload import make_workload as mw
-
-    return mw(n_pairs, mean_len, seed)
-
-
 def main():
-    from agatha_tpu.config import AlignConfig, EngineConfig
-    from agatha_tpu.engine import AlignEngine
-    from agatha_tpu.utils.workload import banded_cells
+    import jax
 
-    # --profile [DIR]: capture a jax.profiler trace of one warm
-    # iteration (the TPU analogue of the reference's nvprof target,
-    # test_prog/Makefile:7) and report a per-bucket completion
-    # breakdown on stderr.  The trace dir is viewable with
-    # tensorboard / xprof.
-    profile_dir = None
+    from agatha_jax.config import AlignConfig
+    from agatha_jax.engine import AlignEngine
+    from agatha_jax.utils.cache import enable_compilation_cache
+    from agatha_jax.utils.workload import (
+        gpu_name_power,
+        make_workload,
+        result_gcups,
+    )
+
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench.py measures a GPU; JAX backend is "
+                 f"{jax.default_backend()!r}")
+    enable_compilation_cache()
     argv = sys.argv[1:]
-    # --colband: route eligible buckets through the experimental
-    # banded column-sweep mapping (EngineConfig.colband) so it is
-    # measured under the SAME protocol as the default (PERF_NOTES
-    # round 5: no routing change without a bench.py number).
-    colband = "--colband" in argv
-    if colband:
-        argv.remove("--colband")
+    profile_dir = None
     if "--profile" in argv:
         i = argv.index("--profile")
         argv.pop(i)
         profile_dir = (
             argv.pop(i) if i < len(argv) and not argv[i].isdigit()
-            else "/tmp/agatha_tpu_trace"
+            else "chiprun_out/trace"
         )
-
-    cfg = AlignConfig(
-        match=1, mismatch=4, gap_open=6, gap_extend=2,
-        slice_width=3, z_threshold=400, band_width=751,
-    )
-    # Default workload: 1024 ~10kb long-read extensions — the domain the
-    # reference targets (long-read mapping) and large enough that
-    # serving-path dispatch latency is amortized.  Optional args cover
-    # the other BASELINE configs: `bench.py 1024 15000` (HiFi),
-    # `bench.py 128 75000 2001 400` (ONT wide band).
+    # Optional args cover the other BASELINE configs: `bench.py 1024
+    # 15000` (HiFi), `bench.py 128 75000 2001 400` (ONT wide band).
     n_pairs = int(argv[0]) if len(argv) > 0 else 1024
     mean_len = int(argv[1]) if len(argv) > 1 else 10000
     band = int(argv[2]) if len(argv) > 2 else 751
     zthr = int(argv[3]) if len(argv) > 3 else 400
-    if band != 751 or zthr != 400:
-        cfg = AlignConfig(
-            match=1, mismatch=4, gap_open=6, gap_extend=2,
-            slice_width=3, z_threshold=zthr, band_width=band,
-        )
-    encoded = make_workload(n_pairs, mean_len)
-    engine = AlignEngine(cfg, EngineConfig(colband=colband))
+    cfg = AlignConfig(
+        match=1, mismatch=4, gap_open=6, gap_extend=2,
+        slice_width=3, z_threshold=zthr, band_width=band,
+    )
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
+    print(f"# device {device}; nvidia-smi: {gpu_name_power()}",
+          file=sys.stderr)
 
-    # Warm-up: compile every bucket shape.
-    engine.align(encoded)
+    encoded = make_workload(n_pairs, mean_len)
+    engine = AlignEngine(cfg)
+    engine.align(encoded)  # warm-up: compile every bucket shape
 
     if profile_dir:
-        import jax
-
         with jax.profiler.trace(profile_dir):
             prof = engine.align(encoded, per_bucket_times=True)
         print(
-            "# profile trace written to "
-            f"{profile_dir}; per-bucket (route, completion ms): "
-            + " ".join(
-                f"{r}:{m:.1f}"
-                for r, m in zip(prof.routes or [], prof.bucket_ms or [])
-            ),
+            f"# profile trace written to {profile_dir}; per-bucket "
+            "(route, completion ms): "
+            + " ".join(f"{r}:{m:.1f}" for r, m in
+                       zip(prof.routes or [], prof.bucket_ms or [])),
             file=sys.stderr,
         )
 
-    # Best-of-3: the serving path to the chip has multi-ms jitter.
     dt = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         res = engine.align(encoded)
         dt = min(dt, time.perf_counter() - t0)
-
-    qlens = [e[2] for e in encoded]
-    rlens = [e[3] for e in encoded]
-    cells = banded_cells(qlens, rlens, res.diags, cfg.band_width)
-    gcups = cells / dt / 1e9
+    gcups = result_gcups(encoded, res, cfg, dt)
+    print(json.dumps({
+        "metric": "banded_dp_cell_updates_per_second",
+        "value": gcups,
+        "unit": "GCUPS",
+        "device": device,
+    }))
     print(
-        json.dumps(
-            {
-                "metric": "banded_dp_cell_updates_per_second",
-                "value": round(gcups, 4),
-                "unit": "GCUPS",
-                "vs_baseline": round(
-                    gcups / cross_mapping_bound(cfg), 4
-                ),
-            }
-        )
-    )
-    print(
-        f"# pairs={n_pairs} mean_len={mean_len} wall={dt*1e3:.1f}ms "
-        f"cells={cells} buckets={res.n_buckets}",
+        f"# pairs={n_pairs} mean_len={mean_len} route={engine.route} "
+        f"wall={dt * 1e3:.1f}ms buckets={res.n_buckets}",
         file=sys.stderr,
     )
 

@@ -1,20 +1,17 @@
-"""Randomized TPU-vs-oracle stress at the ENGINE level.
+"""Randomized device-vs-oracle stress at the ENGINE level.
 
-scripts/stress.py verifies the compiled kernels bucket-by-bucket;
-this script verifies everything AROUND them on the real chip: the
-work-adaptive bucket split, per-chunk lane-mapped snap, kernel
-routing (colsweep / anti / windowed-anti), rev/comp op application at
-encode, result re-ordering at collect, and the over-range validation
-path — by pushing randomized MIXED workloads through
-`AlignEngine.align` and checking every pair against the scalar-
-semantics oracle.
+scripts/stress.py verifies the DP route bucket by bucket; this script
+verifies everything AROUND it on the backend's route: the bucket split,
+rev/comp op application at encode, result re-ordering at collect, and
+the over-range validation path — by pushing randomized MIXED workloads
+through `AlignEngine.align` and checking every pair against the
+scalar-semantics oracle.
 
-Each round draws a config and a batch that deliberately spans
-routes: colsweep-eligible short reads, full-width antidiagonal
-mid-lengths, windowed long pairs (rlen > window_width), extreme
-asymmetry, N runs, and all four op codes on both sides.  Lengths are
-drawn from a few fixed regimes so shapes stay on the compile grid
-(bounded compile count).
+Each round draws a config and a batch that deliberately spans the DP's
+layouts: short reads, full-width mid-lengths, sliding-window long
+pairs (rlen > window_width), extreme asymmetry, N runs, and all four
+op codes on both sides.  Lengths are drawn from a few fixed regimes so
+shapes stay on the compile grid (bounded compile count).
 
 Usage: python scripts/engine_stress.py [n_rounds] [seed]
 Exits non-zero on any mismatch.
@@ -24,11 +21,11 @@ import sys
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig, EngineConfig
-from agatha_tpu.engine import AlignEngine
-from agatha_tpu.io.fasta import SeqPair
-from agatha_tpu.ops.kernel import window_width
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig, EngineConfig
+from agatha_jax.engine import AlignEngine
+from agatha_jax.io.fasta import SeqPair
+from agatha_jax.ops.bucket import window_width
+from agatha_jax.ops.sweep import align_one_sweep
 
 CONFIGS = [
     AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2),
@@ -59,14 +56,14 @@ def mutate(rng, seq, div=0.12):
 
 
 def make_batch(rng, cfg, n=96):
-    """Mixed-route batch: short / mid / windowed / asymmetric pairs,
+    """Mixed batch: short / mid / windowed / asymmetric pairs,
     random op codes.  Length regimes are fixed per config so bucket
     shapes stay on the compile grid across rounds."""
     W = window_width(cfg)
     regimes = [
-        (20, 120),            # colsweep candidates at wide bands
-        (300, 700),           # full-width antidiagonal
-        (W + 100, W + 900),   # forces the sliding-window kernel
+        (20, 120),            # short reads
+        (300, 700),           # full width
+        (W + 100, W + 900),   # forces the sliding window
     ]
     pairs = []
     for i in range(n):

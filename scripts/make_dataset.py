@@ -12,8 +12,8 @@ import os
 import sys
 
 
-from agatha_tpu.io.fasta import write_fasta  # noqa: E402
-from agatha_tpu.utils.workload import make_workload  # noqa: E402
+from agatha_jax.io.fasta import write_fasta  # noqa: E402
+from agatha_jax.utils.workload import make_workload  # noqa: E402
 
 
 _DECODE = {1: "A", 3: "C", 7: "G", 4: "T", 14: "N"}

@@ -31,10 +31,10 @@ import sys
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.io.fasta import write_fasta
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig
+from agatha_jax.io.fasta import write_fasta
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
 
 BASES = np.array(list("ACGT"))
 COMP = str.maketrans("ACGTN", "TGCAN")

@@ -16,8 +16,8 @@ import time
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig, EngineConfig
-from agatha_tpu.engine import AlignEngine
+from agatha_jax.config import AlignConfig, EngineConfig
+from agatha_jax.engine import AlignEngine
 
 CODES = np.array([1, 3, 4, 7], np.uint8)  # A C T G
 

@@ -1,17 +1,13 @@
-"""Randomized TPU-vs-oracle stress verification.
+"""Randomized device-vs-oracle stress verification.
 
-Runs the COMPILED kernel (real chip) against the scalar-semantics
-oracle over randomized pairs and configs, covering both kernel variants
-(full / sliding-window), the int16-safe fast path and the strict strip
-path, reverse/complement ops, N bases, and extreme length asymmetry.
+Runs the backend's DP route (the CUDA kernel on a gpu, the plain-JAX DP
+on the CPU) against the scalar-semantics oracle over randomized pairs
+and configs, covering the full-width and sliding-window layouts, the
+int16-safe fast path and the strict strip path, reverse/complement
+ops, N bases, and extreme length asymmetry.  On a gpu every bucket is
+also run through the plain-JAX DP and must match on all four columns.
 
-With ``--traceback`` each round additionally runs the compiled
-on-device traceback pipeline (emit-flags kernel + Pallas walk) on the
-same bucket and validates every CIGAR: (score, ends) must stay
-bit-exact, the CIGAR must re-score to the kernel score under the plain
-affine model and consume exactly (q_end+1, t_end+1) bases.
-
-Usage: python scripts/stress.py [n_rounds] [seed] [--traceback]
+Usage: python scripts/stress.py [n_rounds] [seed]
 Exits non-zero on any mismatch.
 """
 
@@ -21,13 +17,11 @@ import sys
 
 import numpy as np  # noqa: E402
 
-from agatha_tpu.config import AlignConfig  # noqa: E402
-from agatha_tpu.ops.kernel import (  # noqa: E402
-    align_bucket,
-    build_bucket_arrays,
-)
-from agatha_tpu.ops.packing import encode_padded  # noqa: E402
-from agatha_tpu.ops.sweep import align_one_sweep  # noqa: E402
+from agatha_jax.config import AlignConfig  # noqa: E402
+from agatha_jax.ops.bucket import build_bucket_arrays  # noqa: E402
+from agatha_jax.ops.dp import align_bucket, select_route  # noqa: E402
+from agatha_jax.ops.packing import encode_padded  # noqa: E402
+from agatha_jax.ops.sweep import align_one_sweep  # noqa: E402
 
 CONFIGS = [
     AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2),  # canonical
@@ -61,11 +55,11 @@ def mutate(rng, seq, div=0.12):
 
 
 def main():
-    argv = [a for a in sys.argv[1:] if a != "--traceback"]
-    with_tb = "--traceback" in sys.argv[1:]
+    argv = sys.argv[1:]
     rounds = int(argv[0]) if len(argv) > 0 else 4
     seed = int(argv[1]) if len(argv) > 1 else 0
     rng = np.random.default_rng(seed)
+    route = select_route()
     total = bad = 0
     for rd in range(rounds):
         cfg = CONFIGS[rd % len(CONFIGS)]
@@ -90,26 +84,21 @@ def main():
             qc = encode_padded(q, qop)
             tc = encode_padded(t, top)
             pairs.append((qc, tc, len(q), len(t)))
-        # column-sweep leg: a second bucket sampled inside the
-        # eligible regime (band covers the whole rectangle) so every
-        # config class also stresses the compiled colsweep kernel
-        cs_pairs = []
-        rmax = ((cfg.band_width + 1) // 8) * 8
-        qmax = min(752, cfg.band_width + 1)
-        if rmax >= 8 and qmax >= 8:
-            for _ in range(16):
-                q = rseq(rng, int(rng.integers(1, qmax + 1)))
-                t = mutate(rng, q)[:rmax] or "A"
-                cs_pairs.append((
-                    encode_padded(q), encode_padded(t), len(q), len(t)
-                ))
 
-        meta, tcodes, qfwd = build_bucket_arrays(pairs, cfg)
+        meta, tcodes, qfwd = build_bucket_arrays(pairs)
         force = bool(rng.integers(0, 2))
         out = np.asarray(
             align_bucket(meta, tcodes, qfwd, cfg, force_strips=force)
         )
         round_bad = 0
+        if route != "xla":
+            ref = np.asarray(align_bucket(meta, tcodes, qfwd, cfg,
+                                          force_strips=force, route="xla"))
+            nb = int((out != ref).any(axis=1).sum())
+            if nb:
+                round_bad += nb
+                print(f"ROUTE MISMATCH round={rd}: {nb} rows of {route} "
+                      "differ from the plain-JAX DP")
         for p, (qc, tc, ql, rl) in enumerate(pairs):
             exp = align_one_sweep(qc, tc, ql, rl, cfg)
             got = tuple(int(v) for v in out[p, :3])
@@ -121,79 +110,11 @@ def main():
                     f"z={cfg.z_threshold},sw={cfg.slice_width}) "
                     f"pair={p} ql={ql} rl={rl} exp={tuple(exp)} got={got}"
                 )
-        if with_tb and not round_bad:
-            from agatha_tpu.ops.traceback import (
-                cigar_to_pairs,
-                score_cigar,
-            )
-            from agatha_tpu.ops.walk import (
-                align_bucket_traceback,
-                decode_moves,
-                moves_to_cigar,
-            )
-
-            tout, words = align_bucket_traceback(
-                meta, tcodes, qfwd, cfg, force_strips=force
-            )
-            tout = np.asarray(tout)
-            if not (tout == out).all():
-                round_bad += 1
-                print(f"TB MISMATCH round={rd}: emit-flags kernel "
-                      "results differ from the score kernel")
-            else:
-                from agatha_tpu.ops.kernel import int16_safe
-
-                w_ = tcodes.shape[1] * (
-                    2 if tcodes.dtype == np.uint8 else 1)
-                qf_ = qfwd.shape[1] * (
-                    2 if qfwd.dtype == np.uint8 else 1)
-                # outside the int16-safe regime (or with forced strip
-                # wraparound) the plain-affine rescore can legitimately
-                # differ from the wrapped kernel score; the consumption
-                # invariant must hold regardless
-                strict = int16_safe(cfg, max_len=w_ + qf_) and not force
-                moves = decode_moves(np.asarray(words))
-                for p, (qc, tc, ql, rl) in enumerate(pairs):
-                    score, qe, te = (int(out[p, 0]), int(out[p, 1]),
-                                     int(out[p, 2]))
-                    if score == 0 and qe == 0 and te == 0:
-                        continue
-                    cig = moves_to_cigar(moves[p])
-                    if cigar_to_pairs(cig) != (qe + 1, te + 1):
-                        round_bad += 1
-                        print(f"TB CONSUME BAD round={rd} pair={p}")
-                        continue
-                    if strict and score_cigar(cig, qc, tc, cfg) != score:
-                        round_bad += 1
-                        print(f"TB CIGAR BAD round={rd} pair={p} "
-                              f"score={score}")
-        if cs_pairs:
-            from agatha_tpu.ops.colsweep import (
-                align_bucket_colsweep,
-                colsweep_eligible,
-            )
-            from agatha_tpu.ops.kernel import int16_safe as i16
-
-            cmeta, ctc, cqf = build_bucket_arrays(cs_pairs, cfg)
-            cw = ctc.shape[1] * (2 if ctc.dtype == np.uint8 else 1)
-            cqw = cqf.shape[1] * (2 if cqf.dtype == np.uint8 else 1)
-            if colsweep_eligible(cmeta, cfg,
-                                 i16(cfg, max_len=cw + cqw)):
-                cso = np.asarray(
-                    align_bucket_colsweep(cmeta, ctc, cqf, cfg)
-                )
-                ref = np.asarray(align_bucket(cmeta, ctc, cqf, cfg))
-                n_cs = len(cs_pairs)
-                total += n_cs
-                nb = int((cso[:n_cs] != ref[:n_cs]).any(axis=1).sum())
-                if nb:
-                    bad += nb
-                    print(f"COLSWEEP MISMATCH round={rd}: {nb} rows")
         bad += round_bad
         print(f"round {rd + 1}/{rounds} "
               f"(bw={cfg.band_width}, z={cfg.z_threshold}, "
-              f"strips={'forced' if force else 'auto'}): "
-              f"{16 - round_bad}/16 ok")
+              f"strips={'forced' if force else 'auto'}, route={route}): "
+              f"{round_bad} bad")
     print(f"stress: {total - bad}/{total} pairs bit-exact")
     sys.exit(1 if bad else 0)
 

@@ -1,6 +1,6 @@
 """Host-sharding logic for multi-host data parallelism."""
 
-from agatha_tpu.parallel import distributed
+from agatha_jax.parallel import distributed
 
 
 def test_host_shard_single_process():
@@ -23,9 +23,9 @@ def test_host_shard_balanced(monkeypatch):
 def test_align_distributed_runs_local_shard(rng, monkeypatch):
     import jax
 
-    from agatha_tpu.config import AlignConfig
-    from agatha_tpu.engine import AlignEngine
-    from agatha_tpu.ops.packing import encode_padded
+    from agatha_jax.config import AlignConfig
+    from agatha_jax.engine import AlignEngine
+    from agatha_jax.ops.packing import encode_padded
 
     from .conftest import random_seq
 
@@ -36,7 +36,7 @@ def test_align_distributed_runs_local_shard(rng, monkeypatch):
 
     monkeypatch.setattr(jax, "process_count", lambda: 2)
     monkeypatch.setattr(jax, "process_index", lambda: 1)
-    eng = AlignEngine(AlignConfig(), interpret=True)
+    eng = AlignEngine(AlignConfig())
     sl, res = distributed.align_distributed(eng, encoded)
     assert sl == slice(3, 6)
     assert len(res.scores) == 3

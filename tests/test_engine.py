@@ -1,15 +1,15 @@
-"""Engine bucketing/dispatch and CLI end-to-end tests (CPU interpret)."""
+"""Engine bucketing/dispatch and CLI end-to-end tests (CPU, plain-JAX DP)."""
 
 import subprocess
 import sys
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig, EngineConfig
-from agatha_tpu.engine import AlignEngine, _round_shape
-from agatha_tpu.io.fasta import SeqPair, write_fasta
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig, EngineConfig
+from agatha_jax.engine import AlignEngine, _round_shape
+from agatha_jax.io.fasta import SeqPair, write_fasta
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
 
 from .conftest import mutate, random_seq
 
@@ -30,9 +30,7 @@ def test_round_shape_grid():
 
 
 def test_engine_matches_oracle_mixed_lengths(rng):
-    engine = AlignEngine(
-        CFG, EngineConfig(aligns_per_batch=8), interpret=True
-    )
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8))
     encoded = []
     for i in range(20):
         ql = int(rng.integers(1, 200))
@@ -56,7 +54,7 @@ def test_engine_applies_seq_ops(rng):
     """Reverse/complement ops from FASTA headers flow through encode."""
     q = random_seq(rng, 60)
     t = random_seq(rng, 60)
-    engine = AlignEngine(CFG, interpret=True)
+    engine = AlignEngine(CFG)
     for qop in range(4):
         for top in range(4):
             pairs = [SeqPair(q, t, qop, top)]
@@ -70,7 +68,7 @@ def test_engine_applies_seq_ops(rng):
 def test_empty_batch_and_empty_sequence(rng):
     import pytest
 
-    engine = AlignEngine(CFG, interpret=True)
+    engine = AlignEngine(CFG)
     res = engine.align([])
     assert len(res.scores) == 0
     q = encode_padded("ACGT")
@@ -85,13 +83,13 @@ def test_packing_limit_warning(rng):
     the oracle-identical (degraded) results the reference would give."""
     import warnings
 
-    from agatha_tpu.ops.sweep import align_one_sweep
+    from agatha_jax.ops.sweep import align_one_sweep
 
     # match * min(ql, rl) >= 2^15 with a real 48-base pair: the exact
     # overflow the reference's (H<<16)|r packing exhibits.
     cfg = AlignConfig(match=800, mismatch=4, gap_open=6, gap_extend=2,
                       z_threshold=400, band_width=751)
-    engine = AlignEngine(cfg, interpret=True)
+    engine = AlignEngine(cfg)
     pairs = []
     for _ in range(2):
         q = random_seq(rng, 48)
@@ -126,7 +124,7 @@ def test_cli_end_to_end(tmp_path, rng):
     write_fasta(str(tf), ts, [0] * 5)
 
     proc = subprocess.run(
-        [sys.executable, "-m", "agatha_tpu.cli", "-p", "--interpret",
+        [sys.executable, "-m", "agatha_jax.cli", "-p",
          "-m", "1", "-x", "4", "-q", "6", "-r", "2",
          str(qf), str(tf), str(raw)],
         capture_output=True, text=True, timeout=600,
@@ -138,7 +136,7 @@ def test_cli_end_to_end(tmp_path, rng):
     assert len(lines) == 5
 
     # cross-check against the oracle
-    engine = AlignEngine(CFG, interpret=True)
+    engine = AlignEngine(CFG)
     enc = engine.encode_pairs(
         [SeqPair(qs[i], ts[i], ops[i], 0) for i in range(5)]
     )
@@ -159,8 +157,7 @@ def test_per_bucket_times(rng):
         q = random_seq(rng, 30 + 10 * (i % 5))
         t = mutate(rng, q)
         enc.append((encode_padded(q), encode_padded(t), len(q), len(t)))
-    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8),
-                         interpret=True)
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8))
     res = engine.align(enc, per_bucket_times=True)
     assert res.bucket_ms is not None
     assert len(res.bucket_ms) == res.n_buckets
@@ -170,12 +167,12 @@ def test_per_bucket_times(rng):
 
 
 def test_mixed_windowed_and_full_buckets(rng):
-    """One align() call spanning both kernel variants: a long pair that
+    """One align() call spanning both DP layouts: a long pair that
     takes the sliding-window path bucketed alongside short pairs on
     the full-width path."""
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
                       z_threshold=400, band_width=300)
-    # window_width(300) = 640; rlen > 640 forces the windowed kernel
+    # window_width(300) = 640; rlen > 640 forces the sliding window
     enc = []
     q = random_seq(rng, 700)
     t = mutate(rng, q)
@@ -184,8 +181,7 @@ def test_mixed_windowed_and_full_buckets(rng):
         s = random_seq(rng, 30 + 8 * i)
         t = mutate(rng, s)
         enc.append((encode_padded(s), encode_padded(t), len(s), len(t)))
-    engine = AlignEngine(cfg, EngineConfig(aligns_per_batch=8),
-                         interpret=True)
+    engine = AlignEngine(cfg, EngineConfig(aligns_per_batch=8))
     res = engine.align(enc)
     assert res.n_buckets >= 2
     for i, (qc, tc, ql, rl) in enumerate(enc):
@@ -197,19 +193,15 @@ def test_mixed_windowed_and_full_buckets(rng):
 
 def test_target_buckets_splits_without_changing_results(rng):
     """EngineConfig.target_buckets controls the adaptive bucket count
-    (floor 64 pairs/bucket with the lane-mapped kernels disabled);
-    results are split-invariant."""
+    (floor 64 pairs/bucket); results are split-invariant."""
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2)
     enc = []
     for i in range(256):
         s = random_seq(rng, 24 + (i % 40))
         t = mutate(rng, s)
         enc.append((encode_padded(s), encode_padded(t), len(s), len(t)))
-    off = dict(colsweep=False, colband=False)
-    r2 = AlignEngine(cfg, EngineConfig(target_buckets=2, **off),
-                     interpret=True).align(enc)
-    r4 = AlignEngine(cfg, EngineConfig(target_buckets=4, **off),
-                     interpret=True).align(enc)
+    r2 = AlignEngine(cfg, EngineConfig(target_buckets=2)).align(enc)
+    r4 = AlignEngine(cfg, EngineConfig(target_buckets=4)).align(enc)
     assert r2.n_buckets == 2 and r4.n_buckets == 4
     assert (r2.scores == r4.scores).all()
     assert (r2.query_ends == r4.query_ends).all()
@@ -217,17 +209,15 @@ def test_target_buckets_splits_without_changing_results(rng):
 
 
 def test_bucket_floor_is_work_adaptive(rng):
-    """The split's per-bucket floor scales with per-pair sweep work.
+    """The split's per-bucket floor is a fixed 64 pairs, whatever the
+    per-pair sweep work.
 
-    Short pairs keep the tuned 64-pair floor (so tiny buckets never
-    drown in per-dispatch overhead), but long pairs — where a single
-    pair already carries milliseconds of device work — may form
-    smaller buckets so the sorted split tracks the length spread.
-    Round-5 motivation: the ONT config (128 x ~75 kb, wide spread) got
-    exactly 2 buckets from the hard 64 floor, ~25% dead sweep;
-    measured 1166 -> 1068 ms after this change (PERF_NOTES round 5).
-    Only the split is asserted here (host-side); split-invariance of
-    results is covered by test_target_buckets_splits_*.
+    The former work-adaptive floor (smaller buckets for long pairs,
+    sized from a per-substep cost and a per-dispatch floor measured on
+    other hardware) is gone: on a GPU a bucket of a few long pairs
+    leaves most SMs idle.  Only the split is asserted here (host-side);
+    split-invariance of results is covered by
+    test_target_buckets_splits_*.
     """
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2)
 
@@ -239,13 +229,10 @@ def test_bucket_floor_is_work_adaptive(rng):
                         len(s), len(s)))
         return out
 
-    eng = AlignEngine(cfg, EngineConfig(colsweep=False, colband=False),
-                      interpret=True)
-    # ~40 kb pairs: one pair ~ 1.9 ms of sweep -> 16-pair floor
+    eng = AlignEngine(cfg)
     sizes_long = [len(b.indices)
                   for b in eng.iter_buckets(enc_of(128, 40000))]
-    assert len(sizes_long) >= 8, sizes_long
-    assert all(s >= 8 for s in sizes_long)
+    assert sizes_long == [64, 64], sizes_long
     # short pairs: the 64 floor holds even at target_buckets=16
     sizes_short = [len(b.indices)
                    for b in eng.iter_buckets(enc_of(128, 100))]
@@ -253,33 +240,27 @@ def test_bucket_floor_is_work_adaptive(rng):
 
 
 def test_bucket_size_snaps_to_lane_block(rng):
-    """When the batch will route to a lane-mapped kernel (128 pairs per
-    program), the adaptive split snaps bucket sizes to 128-pair
-    multiples so programs carry no padding lanes — and the -a cap
-    still binds."""
+    """Bucket sizes no longer snap up to 128-pair blocks (a padding
+    rule of kernels that mapped pairs onto 128 vector lanes): the
+    64-pair target split stands, and the -a cap still binds."""
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2)
     enc = []
     for i in range(256):
         s = random_seq(rng, 24 + (i % 40))
         t = mutate(rng, s)
         enc.append((encode_padded(s), encode_padded(t), len(s), len(t)))
-    eng = AlignEngine(cfg, EngineConfig(target_buckets=4),
-                      interpret=True)
+    eng = AlignEngine(cfg, EngineConfig(target_buckets=4))
     sizes = [len(b.indices) for b in eng.iter_buckets(enc)]
-    assert sizes == [128, 128]  # 64-pair split snapped up
+    assert sizes == [64] * 4
     capped = AlignEngine(cfg, EngineConfig(target_buckets=4,
-                                           aligns_per_batch=8),
-                         interpret=True)
+                                           aligns_per_batch=8))
     assert all(len(b.indices) <= 8 for b in capped.iter_buckets(enc))
 
 
 def test_snap_decided_per_chunk_not_per_dataset(rng):
-    """The 128-pair snap mirrors the per-bucket routing gates on each
-    chunk's own lengths (round-4 review item 7): long banded chunks —
-    not lane-mapped while colband is off — keep the tuned
-    target_buckets split even though the dataset is int16-safe; the
-    same chunks snap once colband is opted in; and a mixed batch snaps
-    only its lane-mapped short-read prefix."""
+    """Every chunk keeps the tuned target_buckets split whatever its
+    lengths: long banded chunks, short reads, and a mixed batch all cut
+    at the same size, and each bucket's rows pad to the row grid."""
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
                       z_threshold=400, band_width=63)
     longs = []
@@ -288,60 +269,16 @@ def test_snap_decided_per_chunk_not_per_dataset(rng):
         t = mutate(rng, s)
         longs.append((encode_padded(s), encode_padded(t),
                       len(s), len(t)))
-    eng = AlignEngine(cfg, EngineConfig(target_buckets=4),
-                      interpret=True)
+    eng = AlignEngine(cfg, EngineConfig(target_buckets=4))
     assert [len(b.indices) for b in eng.iter_buckets(longs)] == [64] * 4
 
-    on = AlignEngine(cfg, EngineConfig(target_buckets=4, colband=True),
-                     interpret=True)
-    assert [len(b.indices) for b in on.iter_buckets(longs)] == [128] * 2
-
     shorts = []
-    for i in range(128):
+    for i in range(124):
         s = random_seq(rng, 24 + (i % 17))
         t = mutate(rng, s)
         shorts.append((encode_padded(s), encode_padded(t),
                        len(s), len(t)))
-    sizes = [len(b.indices) for b in eng.iter_buckets(shorts + longs)]
-    # tuned per_bucket = 96, snap = 128: the colsweep-eligible
-    # short-read prefix snaps; long chunks keep the tuned size
-    assert sizes == [128, 96, 96, 64]
-
-
-def test_engine_routes_colband_and_matches(rng, monkeypatch):
-    """Long banded pairs route through the banded column-sweep kernel
-    (spy-asserted) and match the antidiagonal engine bit-for-bit,
-    including diags, across the 8-device round-robin collect path."""
-    import agatha_tpu.ops.colband as cb
-
-    cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
-                      z_threshold=400, band_width=63)
-    enc = []
-    for i in range(40):
-        ql = int(rng.integers(100, 400))
-        q = random_seq(rng, ql, 0.02)
-        t = mutate(rng, q) if i % 2 else random_seq(
-            rng, int(rng.integers(100, 400)), 0.02
-        )
-        enc.append((encode_padded(q), encode_padded(t), len(q), len(t)))
-
-    calls = []
-    orig = cb.align_bucket_colband
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(cb, "align_bucket_colband", spy)
-    on = AlignEngine(
-        cfg, EngineConfig(colband=True), interpret=True
-    ).align(enc)
-    assert calls, "colband path not taken"
-    off = AlignEngine(
-        cfg, EngineConfig(colband=False, colsweep=False),
-        interpret=True,
-    ).align(enc)
-    assert (on.scores == off.scores).all()
-    assert (on.query_ends == off.query_ends).all()
-    assert (on.target_ends == off.target_ends).all()
-    assert (on.diags == off.diags).all()
+    buckets = list(eng.iter_buckets(shorts + longs))
+    # 380 pairs / 4 = 95 per bucket; rows round up to 96
+    assert [len(b.indices) for b in buckets] == [95] * 4
+    assert all(b.meta.shape[0] == 96 for b in buckets)

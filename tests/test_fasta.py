@@ -1,4 +1,4 @@
-from agatha_tpu.io.fasta import read_fasta_pairs
+from agatha_jax.io.fasta import read_fasta_pairs
 
 
 def test_lockstep_pairs_with_ops(tmp_path):

@@ -21,7 +21,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 def _run_cli(tmp_path, extra, qfile, tfile):
     raw = tmp_path / "raw.log"
     proc = subprocess.run(
-        [sys.executable, "-m", "agatha_tpu.cli", "-p", "--interpret",
+        [sys.executable, "-m", "agatha_jax.cli", "-p",
          "-m", "1", "-x", "4", "-q", "6", "-r", "2", *extra,
          os.path.join(GOLDEN, qfile),
          os.path.join(GOLDEN, tfile),

@@ -1,16 +1,18 @@
-"""Pallas kernel vs the cross-validated sweep oracle (bit-exact).
+"""Bucket DP vs the cross-validated sweep oracle (bit-exact).
 
-Runs in interpreter mode on the CPU backend (hermetic); the same kernel
-code path compiles on TPU (validated by bench.py / __graft_entry__.py).
+Runs the plain-JAX DP route on the CPU backend.  The CUDA kernel is
+held to the same results by tests/test_cuda.py (host emulation of its
+body) and on the card by chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.ops.kernel import align_bucket, build_bucket_arrays
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig
+from agatha_jax.ops.bucket import build_bucket_arrays
+from agatha_jax.ops.dp import align_bucket
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
 
 from .conftest import mutate, random_seq
 
@@ -21,8 +23,8 @@ CANON = AlignConfig(
 
 
 def _run_and_compare(pairs, cfg):
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, cfg)
-    out = np.asarray(align_bucket(meta, tcodes, qfwd, cfg, interpret=True))
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    out = np.asarray(align_bucket(meta, tcodes, qfwd, cfg))
     for p, (qc, tc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tc, ql, rl, cfg)
         got = tuple(int(v) for v in out[p, :3])
@@ -52,6 +54,18 @@ def _random_pairs(rng, n, lo=1, hi=260, n_frac=0.02):
         AlignConfig(band_width=0),
         AlignConfig(z_threshold=0),
         AlignConfig(slice_width=5, band_width=17, z_threshold=37),
+        # small bands against moderate lengths hit the clip geometry of
+        # the canonical band against 10 kb reads
+        AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                    slice_width=3, z_threshold=400, band_width=31),
+        AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                    slice_width=3, z_threshold=20, band_width=101),
+        AlignConfig(match=2, mismatch=3, gap_open=5, gap_extend=1,
+                    slice_width=5, z_threshold=150, band_width=55),
+        AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                    slice_width=1, z_threshold=100, band_width=63),
+        AlignConfig(match=3, mismatch=5, gap_open=4, gap_extend=2,
+                    slice_width=4, z_threshold=800, band_width=127),
     ],
 )
 def test_kernel_matches_oracle(rng, cfg):
@@ -69,8 +83,60 @@ def test_kernel_tiny_and_edge_lengths(rng):
 
 
 def test_kernel_multi_program(rng):
-    """More pairs than one program: exercises the grid dimension."""
+    """More pairs than the row grid unit: several row groups."""
     _run_and_compare(_random_pairs(rng, 24, lo=1, hi=140), CANON)
+
+
+@pytest.mark.parametrize("lo,hi", [(100, 160), (40, 500)])
+def test_kernel_length_spread(rng, lo, hi):
+    """Narrow and wide length spreads within one bucket."""
+    _run_and_compare(_random_pairs(rng, 24, lo=lo, hi=hi), CANON)
+
+
+@pytest.mark.parametrize("cfg", [
+    AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                slice_width=3, z_threshold=400, band_width=31),
+    AlignConfig(match=2, mismatch=3, gap_open=5, gap_extend=1,
+                slice_width=2, z_threshold=60, band_width=15),
+    CANON,
+])
+def test_kernel_adversarial_shapes(rng, cfg):
+    """Extreme aspect ratios (rlen >> qlen + band and the converse),
+    empty-slice terminations and single-base edges."""
+    pairs = []
+    for ql, rl in [(8, 400), (400, 8), (16, 391), (391, 16), (1, 200),
+                   (200, 1), (9, 9), (64, 257), (257, 64), (120, 120),
+                   (33, 300), (300, 33)]:
+        q = random_seq(rng, ql, 0.05)
+        t = random_seq(rng, rl, 0.05)
+        pairs.append((encode_padded(q), encode_padded(t), ql, rl))
+    _run_and_compare(pairs, cfg)
+
+
+def test_kernel_hits_empty_slice(rng):
+    """A target far longer than query + band ends at an empty slice:
+    the sweep stops there, and the diagonal count says so."""
+    cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                      slice_width=3, z_threshold=400, band_width=15)
+    q = random_seq(rng, 16)
+    t = random_seq(rng, 600)
+    pairs = [(encode_padded(q), encode_padded(t), 16, 600)]
+    _run_and_compare(pairs, cfg)
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    diags = int(np.asarray(align_bucket(meta, tcodes, qfwd, cfg))[0, 3])
+    assert 0 < diags < 16 + 600 - 1
+
+
+def test_kernel_n_codes(rng):
+    """N-heavy homologous pairs: N scores -N_PENALTY on either side."""
+    cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
+                      slice_width=3, z_threshold=400, band_width=63)
+    pairs = []
+    for n in (180, 90):
+        q = random_seq(rng, n, 0.2)
+        t = mutate(rng, q)
+        pairs.append((encode_padded(q), encode_padded(t), len(q), len(t)))
+    _run_and_compare(pairs, cfg)
 
 
 def test_kernel_identical_sequences(rng):
@@ -90,21 +156,17 @@ def test_kernel_all_n_sequences(rng):
 
 def test_safe16_fast_path_matches_strip_path(rng):
     """int16-safe fast path must equal the full strip-roundtrip path."""
-    from agatha_tpu.ops.kernel import int16_safe
+    from agatha_jax.ops.bucket import int16_safe
 
     assert int16_safe(CANON, max_len=4096)
     assert not int16_safe(
         AlignConfig(z_threshold=-1), max_len=4096
     )
     pairs = _random_pairs(rng, 16, hi=300)
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, CANON)
-    fast = np.asarray(
-        align_bucket(meta, tcodes, qfwd, CANON, interpret=True)
-    )
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    fast = np.asarray(align_bucket(meta, tcodes, qfwd, CANON))
     slow = np.asarray(
-        align_bucket(
-            meta, tcodes, qfwd, CANON, interpret=True, force_strips=True
-        )
+        align_bucket(meta, tcodes, qfwd, CANON, force_strips=True)
     )
     assert (fast == slow).all()
 
@@ -112,26 +174,21 @@ def test_safe16_fast_path_matches_strip_path(rng):
 def test_kernel_padding_pairs_ignored(rng):
     """GB padding with dummy pairs must not corrupt real outputs."""
     pairs = _random_pairs(rng, 3)
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, CANON)
-    # padded to a full program height (width-dependent, >= 8)
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    # padded to the row grid
     assert meta.shape[0] >= 8 and meta.shape[0] % 8 == 0
-    out = np.asarray(
-        align_bucket(meta, tcodes, qfwd, CANON, interpret=True)
-    )
+    out = np.asarray(align_bucket(meta, tcodes, qfwd, CANON))
     for p, (qc, tc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tc, ql, rl, CANON)
         assert tuple(int(v) for v in out[p, :3]) == tuple(exp)
 
 
 def test_align_bucket_gb_contract(rng):
-    """Any GB that is a multiple of 8 is accepted, including counts
-    that don't divide the width-preferred program height (regression:
-    b_pairs_for_width briefly tightened the documented contract)."""
-    pairs = _random_pairs(rng, 5)  # pads to a full program
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, CANON)
-    # rebuild with a hand-chosen GB=40 (not a multiple of 32/64)
-    import numpy as np
-
+    """Any GB that is a multiple of 8 is accepted (the row count is
+    free; the engine only rounds it to bound compile shapes)."""
+    pairs = _random_pairs(rng, 5)  # pads to the row grid
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    # rebuild with a hand-chosen GB=40 (not a power of two)
     gb = 40
     m = np.ones((gb, 2), np.int32)
     tc = np.zeros((gb, tcodes.shape[1]), tcodes.dtype)
@@ -139,7 +196,7 @@ def test_align_bucket_gb_contract(rng):
     m[: meta.shape[0] if meta.shape[0] < gb else gb] = meta[:gb]
     tc[: tcodes.shape[0] if tcodes.shape[0] < gb else gb] = tcodes[:gb]
     qf[: qfwd.shape[0] if qfwd.shape[0] < gb else gb] = qfwd[:gb]
-    out = np.asarray(align_bucket(m, tc, qf, CANON, interpret=True))
+    out = np.asarray(align_bucket(m, tc, qf, CANON))
     assert out.shape == (gb, 4)
     for p, (qc, tcc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tcc, ql, rl, CANON)

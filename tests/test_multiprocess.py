@@ -16,9 +16,9 @@ import sys
 import numpy as np
 import pytest
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
 
 from .conftest import random_seq
 
@@ -35,10 +35,10 @@ jax.distributed.initialize(
     process_id=int(pid),
 )
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.engine import AlignEngine
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.parallel.distributed import align_distributed
+from agatha_jax.config import AlignConfig
+from agatha_jax.engine import AlignEngine
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.parallel.distributed import align_distributed
 
 # deterministic shared input manifest (same on every process)
 rng = np.random.default_rng(7)
@@ -49,7 +49,7 @@ for i in range(10):
     q = "".join(bases[rng.integers(0, 4, size=n)])
     encoded.append((encode_padded(q), encode_padded(q), n, n))
 
-eng = AlignEngine(AlignConfig(), interpret=True)
+eng = AlignEngine(AlignConfig())
 sl, res = align_distributed(eng, encoded)
 json.dump(
     {

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from agatha_tpu import native
-from agatha_tpu.ops.kernel import pack_nibbles
-from agatha_tpu.ops.packing import encode_padded, padded_len
+from agatha_jax import native
+from agatha_jax.ops.bucket import pack_nibbles
+from agatha_jax.ops.packing import encode_padded, padded_len
 
 from .conftest import random_seq
 
@@ -48,35 +48,3 @@ def test_fallback_works(monkeypatch, rng):
     out, lens = native.encode_batch(seqs, None, 24)
     exp = encode_padded(seqs[0])
     assert (out[0, : len(exp)] == exp).all()
-
-
-def test_moves_to_cigars_matches_python(rng, lib_ok):
-    """Native RLE decoder vs the Python reference on random move words.
-
-    Words use the device-walk layout: pair-major (gb, half) int32, two
-    16-bit scan rows per word (low half earlier), 2-bit moves with k=7
-    first in path order; decoding runs backward (see
-    agatha_moves_to_cigars).  Random streams include inactive (0)
-    slots interleaved with runs.
-    """
-    from agatha_tpu.ops.walk import decode_moves, moves_to_cigar
-
-    half, gb = 37, 13
-    # biased toward runs (realistic CIGARs) but with all codes present
-    moves = rng.choice(
-        np.array([0, 1, 1, 1, 1, 2, 3], np.int32), size=(gb, half * 16)
-    )
-    moves[0, :] = 0          # empty CIGAR pair
-    moves[1, :] = 1          # one maximal run
-    words = np.zeros((gb, half), np.int32)
-    for i in range(half):
-        for sub in range(2):
-            row = np.zeros(gb, np.int64)
-            for k in range(8):
-                row |= moves[:, (i * 2 + sub) * 8 + k].astype(np.int64) << (2 * k)
-            words[:, i] |= (row << (16 * sub)).astype(np.int64).astype(np.int32)
-    got = native.moves_to_cigars_batch(words)
-    assert got is not None
-    dec = decode_moves(words)
-    exp = [moves_to_cigar(dec[b]) for b in range(gb)]
-    assert got == exp

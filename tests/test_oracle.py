@@ -2,7 +2,7 @@
 
 `reference_sim.align_one` transliterates the reference's execution
 semantics (slices / chunks / registers / strips); `sweep.align_one_sweep`
-is the antidiagonal-sweep reformulation the TPU kernel uses.  Agreement
+is the antidiagonal-sweep reformulation the device DP uses.  Agreement
 across randomized inputs and parameter settings validates both the
 semantics extraction and the sweep equivalence argument.
 """
@@ -10,10 +10,10 @@ semantics extraction and the sweep equivalence argument.
 import numpy as np
 import pytest
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.ops import packing
-from agatha_tpu.ops.reference_sim import align_one
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig
+from agatha_jax.ops import packing
+from agatha_jax.ops.reference_sim import align_one
+from agatha_jax.ops.sweep import align_one_sweep
 from tests.conftest import mutate, random_seq
 
 CANONICAL = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,

@@ -1,7 +1,7 @@
 import numpy as np
 
-from agatha_tpu.constants import N_VALUE
-from agatha_tpu.ops import packing
+from agatha_jax.constants import N_VALUE
+from agatha_jax.ops import packing
 
 
 def test_base_codes():

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.ops.kernel import B_PAIRS, build_bucket_arrays
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
-from agatha_tpu.parallel.sharding import (
+from agatha_jax.config import AlignConfig
+from agatha_jax.ops.bucket import ROW_UNIT, build_bucket_arrays
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
+from agatha_jax.parallel.sharding import (
     align_bucket_sharded,
     make_pairs_mesh,
     pad_rows,
@@ -23,7 +23,7 @@ def test_sharded_matches_oracle(rng):
     assert n_dev == 8
 
     pairs = []
-    for i in range(n_dev * B_PAIRS):
+    for i in range(n_dev * ROW_UNIT):
         ql = int(rng.integers(1, 120))
         q = random_seq(rng, ql, 0.02)
         t = mutate(rng, q) if i % 2 else random_seq(
@@ -31,11 +31,11 @@ def test_sharded_matches_oracle(rng):
         )
         pairs.append((encode_padded(q), encode_padded(t), len(q), len(t)))
 
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, CFG)
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
     out = np.asarray(
-        align_bucket_sharded(meta, tcodes, qfwd, CFG, mesh, interpret=True)
+        align_bucket_sharded(meta, tcodes, qfwd, CFG, mesh)
     )
-    assert out.shape == (n_dev * B_PAIRS, 4)
+    assert out.shape == (n_dev * ROW_UNIT, 4)
     for p, (qc, tc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tc, ql, rl, CFG)
         assert tuple(int(v) for v in out[p, :3]) == tuple(exp), f"pair {p}"
@@ -45,12 +45,12 @@ def test_sharded_pad_rows(rng):
     mesh = make_pairs_mesh()
     q = random_seq(rng, 64)
     pairs = [(encode_padded(q), encode_padded(q), 64, 64)]
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, CFG)
-    gb = mesh.devices.size * B_PAIRS
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    gb = mesh.devices.size * ROW_UNIT
     out = np.asarray(
         align_bucket_sharded(
             pad_rows(meta, gb, 1), pad_rows(tcodes, gb),
-            pad_rows(qfwd, gb), CFG, mesh, interpret=True,
+            pad_rows(qfwd, gb), CFG, mesh,
         )
     )
     exp = align_one_sweep(*pairs[0], CFG)
@@ -60,7 +60,9 @@ def test_sharded_pad_rows(rng):
 def test_graft_entry_dryrun():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)
@@ -70,17 +72,16 @@ def test_graft_entry_dryrun():
 def test_engine_uses_all_devices_matches_single(rng):
     """AlignEngine production path shards buckets over the mesh; the
     results (and input-order mapping) must equal single-device."""
-    from agatha_tpu.config import EngineConfig
-    from agatha_tpu.engine import AlignEngine
-    from agatha_tpu.utils.workload import make_workload
+    from agatha_jax.config import EngineConfig
+    from agatha_jax.engine import AlignEngine
+    from agatha_jax.utils.workload import make_workload
 
     enc = make_workload(30, 500, seed=13)
     multi = AlignEngine(
-        CFG, EngineConfig(aligns_per_batch=8), interpret=True
+        CFG, EngineConfig(aligns_per_batch=8)
     )
     single = AlignEngine(
         CFG, EngineConfig(aligns_per_batch=8, use_all_devices=False),
-        interpret=True,
     )
     rm = multi.align(enc)
     rs = single.align(enc)
@@ -92,10 +93,11 @@ def test_engine_uses_all_devices_matches_single(rng):
 
 
 def test_engine_sharded_windowed_bucket(rng):
-    """Long-target pairs (windowed kernel) through the sharded engine."""
-    from agatha_tpu.config import EngineConfig
-    from agatha_tpu.engine import AlignEngine
-    from agatha_tpu.ops.kernel import window_width
+    """Long-target pairs (sliding band window) through the sharded
+    engine."""
+    from agatha_jax.config import EngineConfig
+    from agatha_jax.engine import AlignEngine
+    from agatha_jax.ops.bucket import window_width
 
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
                       band_width=40, z_threshold=150)
@@ -106,8 +108,7 @@ def test_engine_sharded_windowed_bucket(rng):
         t = mutate(rng, q) if i % 2 else random_seq(rng, n + 20, 0.01)
         pairs.append((encode_padded(q), encode_padded(t), len(q), len(t)))
     assert max(p[3] for p in pairs) > window_width(cfg)
-    eng = AlignEngine(cfg, EngineConfig(aligns_per_batch=16),
-                      interpret=True)
+    eng = AlignEngine(cfg, EngineConfig(aligns_per_batch=16))
     res = eng.align(pairs)
     for p, (qc, tc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tc, ql, rl, cfg)

@@ -6,10 +6,10 @@ import sys
 
 import numpy as np
 
-from agatha_tpu.config import AlignConfig, EngineConfig
-from agatha_tpu.engine import AlignEngine
-from agatha_tpu.io.fasta import SeqPair, write_fasta
-from agatha_tpu.ops.packing import encode_padded
+from agatha_jax.config import AlignConfig, EngineConfig
+from agatha_jax.engine import AlignEngine
+from agatha_jax.io.fasta import SeqPair, write_fasta
+from agatha_jax.ops.packing import encode_padded
 
 from .conftest import mutate, random_seq
 
@@ -28,8 +28,7 @@ def _encoded(rng, n):
 
 def test_stream_matches_batch(rng):
     enc = _encoded(rng, 150)
-    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=64),
-                         interpret=True)
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=64))
     batch = engine.align(enc)
     chunks = list(engine.align_stream(iter(enc)))
     assert len(chunks) == 3  # 64 + 64 + 22
@@ -45,14 +44,11 @@ def test_stream_routes_are_per_chunk(rng):
     """Each yielded result carries ITS chunk's routes, not the most
     recently dispatched chunk's.
 
-    Regression (round 5): routes were read from shared instance state
-    at collect time, so with max_in_flight > 1 a short-read chunk that
-    dispatched via colsweep reported the later long-read chunks'
-    'anti' routes.  Chunk 0 here is colsweep-eligible short reads;
-    chunks 1-2 are band-escaping longer pairs that route 'anti'.
+    Regression: routes were once read from shared instance state at
+    collect time, so with max_in_flight > 1 an early chunk reported the
+    later chunks' routes.  Every chunk's result must hold the very list
+    its own dispatch returned.
     """
-    # colsweep at bw=31 needs band >= 8*ceil(rlen/8)-1 and qlen-1:
-    # rlen <= 4 (8*1-1 = 31) with qlen <= 32 qualifies
     short = []
     for i in range(8):
         q = random_seq(rng, 20 + i)
@@ -67,23 +63,29 @@ def test_stream_routes_are_per_chunk(rng):
         t = mutate(rng, q)
         longs.append((encode_padded(q), encode_padded(t),
                       len(q), len(t)))
-    engine = AlignEngine(cfg, EngineConfig(aligns_per_batch=8),
-                         interpret=True)
+    engine = AlignEngine(cfg, EngineConfig(aligns_per_batch=8))
+    dispatched = []
+    orig = engine._dispatch
+
+    def spy(encoded):
+        out = orig(encoded)
+        dispatched.append(out[2])
+        return out
+
+    engine._dispatch = spy
     chunks = list(engine.align_stream(iter(short + longs),
                                       max_in_flight=3))
-    assert len(chunks) == 3
-    assert chunks[0].routes == ["colsweep"], chunks[0].routes
-    for c in chunks[1:]:
-        # 'anti-sharded' on the multi-device CPU mesh, 'anti' on one
-        assert set(c.routes) <= {"anti", "anti-sharded"}, c.routes
-        assert len(c.routes) == c.n_buckets
+    assert len(chunks) == 3 == len(dispatched)
+    for c, routes in zip(chunks, dispatched):
+        assert c.routes is routes
+        # the plain-JAX DP, sharded over the 8-device CPU mesh
+        assert c.routes == ["xla-sharded"] * c.n_buckets, c.routes
 
 
 def test_stream_bounded_window(rng):
     """At most max_in_flight chunks may be alive before a yield."""
     enc = _encoded(rng, 8 * 10)
-    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8),
-                         interpret=True)
+    engine = AlignEngine(CFG, EngineConfig(aligns_per_batch=8))
     live = 0
     peak = 0
     orig = engine._dispatch
@@ -119,7 +121,7 @@ def test_stream_accepts_seqpairs(rng):
     for i in range(10):
         q = random_seq(rng, 50)
         pairs.append(SeqPair(q, mutate(rng, q), 0, 0))
-    engine = AlignEngine(CFG, interpret=True)
+    engine = AlignEngine(CFG)
     chunks = list(engine.align_stream(iter(pairs)))
     res = engine.align_pairs(pairs)
     got = np.concatenate([c.scores for c in chunks])
@@ -130,7 +132,7 @@ def test_cli_stream_stdout_identical(tmp_path):
     """--stream must produce byte-identical stdout to the batch path."""
     env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
            "HOME": "/root"}
-    base = [sys.executable, "-m", "agatha_tpu.cli", "-p", "--interpret",
+    base = [sys.executable, "-m", "agatha_jax.cli", "-p",
             "-m", "1", "-x", "4", "-q", "6", "-r", "2", "-a", "8",
             os.path.join(GOLDEN, "query.fasta"),
             os.path.join(GOLDEN, "target.fasta")]
@@ -158,8 +160,8 @@ def test_cli_stream_cigar(tmp_path, rng):
     env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
            "HOME": "/root"}
     proc = subprocess.run(
-        [sys.executable, "-m", "agatha_tpu.cli", "--stream", "--cigar",
-         "--interpret", "-m", "1", "-x", "4", "-q", "6", "-r", "2",
+        [sys.executable, "-m", "agatha_jax.cli", "--stream", "--cigar",
+         "-m", "1", "-x", "4", "-q", "6", "-r", "2",
          "-a", "5", str(qf), str(tf), str(raw)],
         capture_output=True, text=True, timeout=900, env=env,
     )
@@ -167,6 +169,6 @@ def test_cli_stream_cigar(tmp_path, rng):
     lines = proc.stdout.splitlines()
     assert len(lines) == 12
     assert all("\tcigar=" in ln for ln in lines)
-    # -a has a floor of B_PAIRS=8: 12 pairs -> chunks of 8+4 -> 2
+    # -a has a floor of ROW_UNIT=8: 12 pairs -> chunks of 8+4 -> 2
     # raw lines (one per chunk)
     assert len(open(raw).read().split()) == 2

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.engine import AlignEngine
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
-from agatha_tpu.ops.traceback import (
+from agatha_jax.config import AlignConfig
+from agatha_jax.engine import AlignEngine
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
+from agatha_jax.ops.traceback import (
     cigar_to_pairs,
     score_cigar,
     traceback_one,
@@ -112,7 +112,7 @@ def test_band_exempt_end_stale_carry():
     traceback must return the best genuine path WITHOUT warning."""
     import warnings
 
-    from agatha_tpu.constants import MINUS_INF2, N_PENALTY, N_VALUE
+    from agatha_jax.constants import MINUS_INF2, N_PENALTY, N_VALUE
 
     cfg = AlignConfig(match=2, mismatch=3, gap_open=2, gap_extend=1,
                       band_width=1)
@@ -172,7 +172,7 @@ def test_native_traceback_matches_python(rng):
     with gap_oe == gap_extend the C++ engine's sentinel compare used
     to set f_from_open at i==0 where the Python reference hardcodes
     False (fixed round 5)."""
-    import agatha_tpu.native as nv
+    import agatha_jax.native as nv
 
     if not nv.available():
         pytest.skip("native library unavailable")
@@ -203,7 +203,7 @@ def test_adaptive_matches_expected_score(rng):
     """The adaptive engine must reproduce the known DP score exactly,
     including pairs whose path wanders far off the end-point line
     (forcing the window to widen and retry)."""
-    import agatha_tpu.native as nv
+    import agatha_jax.native as nv
 
     if not nv.available():
         pytest.skip("native library unavailable")
@@ -232,7 +232,7 @@ def test_adaptive_matches_expected_score(rng):
 def test_traceback_all_batch(rng):
     """traceback_all (threaded native batch) upholds the per-pair
     invariants and handles the empty-CIGAR special case."""
-    from agatha_tpu.ops.traceback import traceback_all
+    from agatha_jax.ops.traceback import traceback_all
 
     enc = []
     exp = []
@@ -260,7 +260,7 @@ def test_traceback_all_batch(rng):
 
 
 def test_engine_traceback(rng):
-    engine = AlignEngine(CFG, interpret=True)
+    engine = AlignEngine(CFG)
     pairs = []
     for i in range(6):
         q = random_seq(rng, 50 + 10 * i)

@@ -1,26 +1,23 @@
-"""Sliding-window kernel vs oracle (small band => window activates at
-modest lengths so interpret mode stays fast)."""
+"""Sliding band window vs oracle (small band => the window activates at
+modest lengths so the CPU run stays fast)."""
 
 import numpy as np
 import pytest
 
-from agatha_tpu.config import AlignConfig
-from agatha_tpu.ops.kernel import (
-    align_bucket,
-    build_bucket_arrays,
-    window_width,
-)
-from agatha_tpu.ops.packing import encode_padded
-from agatha_tpu.ops.sweep import align_one_sweep
+from agatha_jax.config import AlignConfig
+from agatha_jax.ops.bucket import build_bucket_arrays, window_width
+from agatha_jax.ops.dp import align_bucket
+from agatha_jax.ops.packing import encode_padded
+from agatha_jax.ops.sweep import align_one_sweep
 
 from .conftest import mutate, random_seq
 
 
 def _check(pairs, cfg):
-    meta, tcodes, qfwd = build_bucket_arrays(pairs, cfg)
-    w = tcodes.shape[1] * (2 if tcodes.dtype == np.uint8 else 1)
+    meta, tcodes, qfwd = build_bucket_arrays(pairs)
+    w = 2 * tcodes.shape[1]  # nibble-packed wire format
     assert w > window_width(cfg), "test must exercise the windowed path"
-    out = np.asarray(align_bucket(meta, tcodes, qfwd, cfg, interpret=True))
+    out = np.asarray(align_bucket(meta, tcodes, qfwd, cfg))
     for p, (qc, tc, ql, rl) in enumerate(pairs):
         exp = align_one_sweep(qc, tc, ql, rl, cfg)
         got = tuple(int(v) for v in out[p, :3])
@@ -34,7 +31,8 @@ def _check(pairs, cfg):
     AlignConfig(band_width=25, z_threshold=-1, slice_width=1),
     # band_width + 220 an exact multiple of 128: the window margin's
     # strict inequality (W > bw + 220) gets zero slack from rounding
-    # here, so window_width must bump W one lane tile (qwin healing)
+    # here, so window_width must bump W one width unit (query-window
+    # healing)
     AlignConfig(band_width=36, z_threshold=150),
 ])
 def test_windowed_matches_oracle(rng, cfg):
@@ -48,7 +46,8 @@ def test_windowed_matches_oracle(rng, cfg):
 
 
 def test_window_width_strict_margin():
-    """W must exceed bw + 220 strictly (post-shift qwin healing)."""
+    """W must exceed bw + 220 strictly (post-shift query-window
+    healing)."""
     for bw in (36, 164, 751, 804, 932):
         cfg = AlignConfig(band_width=bw)
         assert window_width(cfg) > bw + 220, bw
@@ -67,7 +66,7 @@ def test_windowed_asymmetric_lengths(rng):
 
 
 def test_windowed_mixed_bucket_with_short_pairs(rng):
-    """Window policy is global per program; short pairs must not break."""
+    """Window policy is global per bucket; short pairs must not break."""
     cfg = AlignConfig(match=1, mismatch=4, gap_open=6, gap_extend=2,
                       band_width=60, z_threshold=300)
     pairs = []

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from agatha_tpu.utils.workload import banded_cells, make_workload
+from agatha_jax.utils.workload import banded_cells, make_workload
 
 
 def _brute_cells(ql, rl, nd, bw):
@@ -38,7 +38,7 @@ def test_make_workload_deterministic():
 
 
 def test_cli_flags_reach_config(tmp_path):
-    from agatha_tpu.cli import build_parser
+    from agatha_jax.cli import build_parser
 
     args = build_parser().parse_args(
         ["-m", "5", "-x", "7", "-q", "11", "-r", "3", "-s", "2",
